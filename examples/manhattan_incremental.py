@@ -2,7 +2,7 @@
 
 Mirrors /root/reference/examples/ManhattanDatasetIncremental.jl: parse g2o
 instructions one at a time, re-solve every ``stride`` instructions with
-warm-started values (the TPU analogue of solveTree! tree recycling), report
+warm-started values (the analogue of solveTree! tree recycling), report
 per-step timing, and checkpoint the graph at solve boundaries.
 
     python examples/manhattan_incremental.py [g2o_path] [max_instructions] [stride]
@@ -34,7 +34,7 @@ def main(path=DEFAULT, max_instructions="300", stride="10"):
         if (i + 1) % stride == 0:
             t0 = time.time()
             # warm start from current estimates + bucketed shapes: the
-            # compiled LM program is reused within a shape bucket (the TPU
+            # compiled LM program is reused within a shape bucket (the
             # analogue of solveTree! tree recycling)
             res = solve_graph_parametric(fg, init=False, options=opts,
                                          chordal_init=False, pad=True)

@@ -1,6 +1,6 @@
-"""rome_tpu — TPU-native SLAM factor-graph state-estimation framework.
+"""rome_tpu — SLAM factor-graph state-estimation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 JuliaRobotics/RoME.jl and its solver stack (IncrementalInference /
 DistributedFactorGraphs / ApproxManifoldProducts): manifold variable types,
 a vmapped factor library, batched Gauss-Newton/Levenberg-Marquardt parametric

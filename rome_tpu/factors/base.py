@@ -1,6 +1,6 @@
 """Factor-type machinery: typed residual kernels + instance records.
 
-TPU-first design (SURVEY.md §7): the reference dispatches per-factor Julia
+Design (SURVEY.md §7): the reference dispatches per-factor Julia
 functors (``CalcFactor`` closures); here each factor *type* is one pure
 residual kernel ``residual(params, *points) -> (zdim,)`` and all instances of
 a type stack into a dense batch that the solver vmaps in a single fused XLA

@@ -1,6 +1,6 @@
 """Velocity-augmented 2D factors — constant-velocity kinematics.
 
-TPU re-design of the reference's dynamic 2D family
+Re-design of the reference's dynamic 2D family
 (/root/reference/src/factors/DynPoint2D.jl, VelPoint2D.jl, DynPose2D.jl,
 VelPose2D.jl): dt comes from the bound variables' nanosecond timestamps via
 the ``needs_dt`` FactorType flag (the reference reads

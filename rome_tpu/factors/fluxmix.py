@@ -6,7 +6,7 @@ velocity feature construction (calcVelocityInterPose2!), plus the
 Pose2OdoNN_01 model builder (ext/services/Pose2OdoNN_01.jl:7-41). The legacy
 alias FluxModelsPose2Pose2 maps to the same factor (RoMEFluxExt.jl:153-169).
 
-TPU design: the network is a pure-JAX forward (weights live in the factor's
+Design: the network is a pure-JAX forward (weights live in the factor's
 parameter arrays), sampled predictions for all particles come from ONE
 batched forward pass, and the residual is the standard Pose2Pose2 kernel.
 """

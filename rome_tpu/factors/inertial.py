@@ -1,6 +1,6 @@
 """Inertial factors — IMU preintegration on SGal(3) and support factors.
 
-TPU-native re-design of the reference inertial stack
+Re-design of the reference inertial stack
 (/root/reference/src/factors/Inertial/IMUDeltaFactor.jl:293-496,
 PriorIMUBias.jl:13-37, ../PriorVelPos3.jl:13-33, ../VelPosRotVelPos.jl:6-26,
 ../VelAlign.jl:6-42): preintegration runs as one ``lax.scan`` over the raw
@@ -75,9 +75,9 @@ def preintegrate_imu(accels, gyros, deltatimes, Sigma_y, a_b=None, w_b=None):
 
     One fused lax.scan (IMUDeltaFactor.jl:448-458). Runs under an x64 scope on
     the host CPU backend: preintegration happens once per factor at
-    graph-build time, so float64 accuracy wins over device dtype here (the
-    TPU backend has no native f64); the solve-time residual kernels stay in
-    the graph's (float32/bfloat16) dtype on the accelerator.
+    graph-build time on a short stream, so it stays off the device and
+    float64 accuracy wins over the graph dtype here; the solve-time residual
+    kernels stay in the graph's (float32/bfloat16) dtype on the accelerator.
     """
     cpu = jax.devices("cpu")[0]
     with jax.enable_x64(), jax.default_device(cpu):

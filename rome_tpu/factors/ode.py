@@ -5,7 +5,7 @@ an IIF DERelative with forward+backward ODEProblems over linearly
 interpolated gyro/accel signals) and ext/factors/InertialDynamic.jl:14-37
 (imuKinematic!: Rdot = R*Omega, Vdot = R*A - g, Pdot = V).
 
-TPU design: the ODE integrates as a fixed-step RK4 lax.scan inside the
+Design: the ODE integrates as a fixed-step RK4 lax.scan inside the
 residual kernel — static step count, signals linearly interpolated from
 dense (N, 3) device arrays, differentiable end-to-end so the parametric
 solver gets exact sensitivities through the flow.

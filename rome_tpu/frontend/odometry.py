@@ -144,7 +144,7 @@ def assemble_chords_dict(fg: FactorGraph, vsyms=None, maxadi: int = 10):
     SE(2) chord (a) composed from odometry measurements only and (b) from the
     SLAM solution. The reference spawns a Julia task per chord
     (Threads.@spawn); here all chords come out of ONE batched prefix-compose
-    (lax.scan) + vmapped ``local`` — the TPU-native shape of the same
+    (lax.scan) + vmapped ``local`` — the batched shape of the same
     computation. Returns {from: {to: (meas_rel, soln_rel)}} with (3,) arrays
     (the reference returns 3x100 particle matrices; sample around the means
     with the accumulated covariance if particle form is needed)."""

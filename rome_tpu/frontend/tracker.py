@@ -5,7 +5,7 @@ BallTreeDensity beliefs propagated by odometry with noise via Distributed
 ``remotecall`` fan-out (:44-65, :294-325) and updated by KDE products
 (:260-285), with likelihood-matrix hard association (:194-244).
 
-TPU re-design (SURVEY.md §2.7 table): every tracker is a particle array on
+Re-design (SURVEY.md §2.7 table): every tracker is a particle array on
 T(2); propagation of ALL features is one vmapped batch over the stacked
 (F, N, 2) particle tensor, the likelihood matrix is one batched KDE
 evaluation, and measurement updates are Gibbs KDE products — no worker

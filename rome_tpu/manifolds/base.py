@@ -1,12 +1,12 @@
 """Lie-group manifold kernels — the foundation every factor vmaps over.
 
-Design (TPU-first, not a port):
+Design (not a port):
   The reference represents points as Julia ``ArrayPartition`` objects with
   per-type dynamic dispatch (/root/reference/src/variables/VariableTypes.jl).
   Here every manifold point is a flat fixed-width vector so variables of one
   type pack into a dense ``(n, point_dim)`` array that XLA can tile; all ops
-  are pure functions over trailing dims, safe under jit/vmap/scan and usable
-  inside Pallas kernels.
+  are pure functions over trailing dims, safe under jit/vmap/scan and under
+  broadcasting of their leading dims.
 
 Tangent convention ("hybrid", matching the reference):
   The reference uses Manifolds.jl ``SpecialEuclidean(n; vectors=
@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from rome_tpu.utils.math import rot2, sym_rem
+from rome_tpu.utils.math import sym_rem
 from rome_tpu.manifolds import quat as Q
 
 
@@ -197,15 +197,21 @@ class SE2(Manifold):
     def identity(self, dtype=jnp.float32):
         return jnp.zeros(3, dtype=dtype)
 
+    # rotations written out elementwise, not as a 2x2 matmul: broadcasting
+    # callers ((N, 1, 3) against (1, Nj, 3)) fuse into one loop, and no f32
+    # product is left to the backend's default matmul precision
     def compose(self, a, b):
-        t = a[..., :2] + jnp.squeeze(rot2(a[..., 2]) @ b[..., :2, None], -1)
+        c, s = jnp.cos(a[..., 2]), jnp.sin(a[..., 2])
+        bx, by = b[..., 0], b[..., 1]
+        x = a[..., 0] + c * bx - s * by
+        y = a[..., 1] + s * bx + c * by
         th = sym_rem(a[..., 2] + b[..., 2])
-        return jnp.concatenate([t, th[..., None]], axis=-1)
+        return jnp.stack([x, y, th], axis=-1)
 
     def inverse(self, a):
-        th = -a[..., 2]
-        t = -jnp.squeeze(rot2(th) @ a[..., :2, None], -1)
-        return jnp.concatenate([t, th[..., None]], axis=-1)
+        c, s = jnp.cos(a[..., 2]), jnp.sin(a[..., 2])
+        ax, ay = a[..., 0], a[..., 1]
+        return jnp.stack([-(c * ax + s * ay), s * ax - c * ay, -a[..., 2]], axis=-1)
 
     def exp(self, xi):
         # hybrid: translation passes through linearly, angle wraps

@@ -7,7 +7,7 @@ once under XLA.
 The reference stores SO(3) points as 3x3 StaticArrays matrices
 (/root/reference/src/variables/VariableTypes.jl:47-50); we use unit
 quaternions instead: 4 floats/point instead of 9, cheaper compose, and
-renormalisation is a single rsqrt — a better fit for TPU vector lanes.
+renormalisation is a single rsqrt.
 """
 
 from __future__ import annotations

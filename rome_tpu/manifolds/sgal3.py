@@ -1,6 +1,6 @@
 """SGal(3) — the Special Galilean group for IMU preintegration.
 
-TPU-native re-design of the reference's SpecialGalileanGroup
+Re-design of the reference's SpecialGalileanGroup
 (/root/reference/src/factors/Inertial/IMUDeltaFactor.jl:9-291): a 10-dim Lie
 group over (R, v, p, t) with closed-form ``_Q``/``_P`` rotation integrals,
 small/big adjoints, truncated-series right Jacobian, and the
@@ -109,9 +109,9 @@ def _QP_mats(theta_vec):
 
 
 def _inv3(A):
-    """Closed-form 3x3 inverse (adjugate / det) — pure VPU elementwise math;
-    jnp.linalg.inv would lower to LuDecomposition, which the TPU compiler
-    only implements for f32 and is serial for tiny matrices anyway."""
+    """Closed-form 3x3 inverse (adjugate / det) — pure elementwise math that
+    fuses with its neighbours; jnp.linalg.inv would lower to a batched LU
+    call, which is serial work for tiny matrices."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]

@@ -2,11 +2,9 @@
 
 The generic path (solvers/linearize.batch_linearize) computes residual +
 Jacobians via vmapped ``jacfwd`` — fully general, but forward-mode evaluates
-the residual once per tangent direction (7 evaluations for Pose2Pose2) and
-the (n, 3)-shaped intermediates leave most of the TPU's 128-wide vector
-lanes idle. These kernels compute the SAME whitened residual/Jacobians in
-closed form over (n,) coordinate planes: ~30 elementwise ops total, every
-op a full-width (n,) vector op.
+the residual once per tangent direction (7 evaluations for Pose2Pose2).
+These kernels compute the SAME whitened residual/Jacobians in closed form
+over (n,) coordinate planes: ~30 elementwise ops total, which XLA fuses.
 
 Derivation (Pose2Pose2, hybrid SE(2) tangent — matches Pose2D.jl:48-67 and
 manifolds.base.SE2 exactly):

@@ -1,14 +1,14 @@
-"""Multi-host runtime initialization (SURVEY.md §2.7 TPU-native column).
+"""Multi-host runtime initialization (SURVEY.md §2.7).
 
 The reference scales out with Julia ``Distributed.addprocs`` worker
-processes on one machine (testBeehiveGrow.jl:7-12). The TPU-native
-equivalent is one JAX process per host joined through ``jax.distributed``,
-with the factor-sharded solve of :mod:`rome_tpu.parallel.sharding` running
-over the global mesh — gradient/HVP psums ride ICI within a host slice and
-DCN across hosts.
+processes on one machine (testBeehiveGrow.jl:7-12). The JAX equivalent is
+one process driving every GPU of a host, or one JAX process per host joined
+through ``jax.distributed``, with the factor-sharded solve of
+:mod:`rome_tpu.parallel.sharding` running over the global mesh — gradient/HVP
+psums are collectives across the mesh.
 
 On a single machine this module is exercised in degenerate form
-(num_processes=1); the same entry points drive real pods.
+(num_processes=1); the same entry points drive several hosts.
 """
 
 from __future__ import annotations
@@ -79,15 +79,28 @@ def global_mesh(axis: str = "f"):
     return Mesh(devs, (axis,))
 
 
-def solve_graph_distributed(fg, mesh=None, solve_key: str = "parametric", **kw):
+def solve_graph_distributed(fg, mesh=None, solve_key: str = "parametric",
+                            chordal_init: bool = False, **kw):
     """End-to-end distributed parametric solve of a FactorGraph: lower,
-    shard factor batches over the mesh, run the fused on-device LM loop,
-    write results back. The multi-host analogue of solve_graph_parametric."""
+    optionally chordal-initialize the Pose2 block, shard factor batches over
+    the mesh, run the fused on-device LM loop, write results back. The
+    multi-device analogue of solve_graph_parametric. Values are carried in
+    f64 when x64 is live, as the single-device ndchol/dense32 solvers carry
+    them."""
+    import jax
+    import jax.numpy as jnp
+
     from rome_tpu.graph.lower import lower, write_back
     from rome_tpu.parallel.sharding import solve_distributed
 
     mesh = mesh or global_mesh()
-    ga = lower(fg, solve_key)
-    values, stats = solve_distributed(ga, mesh, **kw)
+    dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
+    ga = lower(fg, solve_key, dtype=dtype)
+    values = ga.values0
+    if chordal_init and ga.counts.get("Pose2", 0) > 2:
+        from rome_tpu.solvers.init2d import chordal_init_pose2
+
+        values = chordal_init_pose2(ga, values)
+    values, stats = solve_distributed(ga, mesh, values=values, **kw)
     write_back(fg, ga, values, solve_key)
     return {"stats": stats, "mesh": tuple(mesh.shape.items())}

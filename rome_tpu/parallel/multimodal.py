@@ -1,8 +1,8 @@
-"""Distributed nonparametric belief propagation (VERDICT r2 #7).
+"""Distributed nonparametric belief propagation.
 
 The reference parallelizes *clique solves* of the sampling solver across
 Julia worker processes (src/legacy/Slam.jl:189-297, testBeehiveGrow.jl:21-28
-via ``SolverParams.multiproc``). The TPU-native re-expression shards the two
+via ``SolverParams.multiproc``). The JAX re-expression shards the two
 phases of the compiled sweep (solvers/multimodal/batched.py) over a device
 mesh inside ONE ``shard_map`` program:
 

@@ -1,11 +1,11 @@
 """Multi-device distributed solving via jax.sharding + shard_map.
 
-TPU-native re-expression of the reference's parallelism (SURVEY.md §2.7):
+Re-expression of the reference's parallelism (SURVEY.md §2.7):
 where IIF dispatches clique solves to Julia worker processes, we partition
 the *factor batches* across a device mesh; every device owns a slice of each
 batch, computes its local residual/Jacobian products, and the global
-gradient / Hessian-vector products are formed with ``psum`` over the mesh —
-the collectives ride ICI. Variable state (small for SLAM graphs) is
+gradient / Hessian-vector products are formed with ``psum`` over the mesh.
+Variable state (small for SLAM graphs) is
 replicated; this is the separator-marginal exchange of the north star in its
 exact linear-algebra form (distributing J^T r and J^T J v term sums).
 
@@ -296,8 +296,8 @@ def make_sharded_gn_step(
             # rejected-branch convergence. At an f32 cost plateau whether a
             # trial "improves" is an ulp coin-flip that depends on the psum
             # reduction order, so the SAME solve can read accept (ftol) on
-            # one device count and reject-cascade ("stalled") on another
-            # (the SCALING_r02 2-device drift). Fix: a REJECTED step whose
+            # one device count and reject-cascade ("stalled") on another.
+            # Fix: a REJECTED step whose
             # cost is within ftol of the plateau is the same convergence
             # signal as an accepted one — fire code 3 on it. Rejections far
             # from convergence overshoot by >> ftol and are unaffected;

@@ -284,7 +284,7 @@ def make_varpart_solver(ga: GraphArrays, mesh: Mesh, axis: str = "v",
 
     def build(mode="solve"):
         """``mode``: "solve" = the fused LM loop (production);
-        phase probes for the scaling decomposition (SCALING_r05):
+        phase probes for the scaling decomposition (tools/scaling_bench.py):
         "lin_cost"     = sep exchange + linearize + cost psum only
         "schur_full"   = one full Schur step (linearize + local elimination
                          + fused psum + separator solve + back-substitute)
@@ -432,7 +432,7 @@ def make_varpart_solver(ga: GraphArrays, mesh: Mesh, axis: str = "v",
                 # order perturbs the sum at ~1e-7 relative — enough to flip
                 # accept decisions and drift the iteration count between
                 # single- and multi-process runs of the identical problem
-                # (MULTIPROC_r04: 11 vs 18 iters). f64 collectives make the
+                # (11 vs 18 iters were seen). f64 collectives make the
                 # perturbation ~1e-16, far below any accept threshold.
                 cdt = jnp.float64 if jax.config.jax_enable_x64 else dtype
                 c = sum(
@@ -502,8 +502,8 @@ def make_varpart_solver(ga: GraphArrays, mesh: Mesh, axis: str = "v",
                 [S_d | reduced-rhs | separator-gradient | interior |g|^2],
                 and every device solves the small replicated separator
                 system directly. No CG, no per-iteration collective chatter
-                — this is what cuts MULTIPROC_r03's ~9000 collectives/solve
-                to ~7 per LM iteration. Reference analogue: upward clique
+                — this cuts the ~9000 collectives/solve of a CG-based
+                exchange to ~7 per LM iteration. Reference analogue: upward clique
                 elimination to the Bayes-tree root followed by the root
                 solve (Slam.jl:261 solveTree!), with devices as cliques."""
                 rows_all, cols_all, vals_all = [], [], []

@@ -140,13 +140,11 @@ def linearize_all(ga: GraphArrays, values, rt=None):
 def linearize_all_mixed_j(ga64, ga32, values, rt):
     """f64 residuals + f32 Jacobians, per batch.
 
-    On TPU f64 is software-emulated (~10x the f32 rate) and the Jacobian
-    entries are ~4/5 of the linearize flops — yet every downstream
-    consumer of J in the ndchol path casts to f32 anyway (normal-equation
-    assembly, the factorization, the loose-polish Hvp). Only the residual
-    r feeds the f64-critical quantities (cost, gradient RHS), so r is
-    evaluated at f64 and J at native f32. Measured M3500: per-LM-iteration
-    wall 42 -> 29 ms at unchanged ATE (tools/exp_lm_tune.py r5).
+    The Jacobian entries are ~4/5 of the linearize flops, and every
+    downstream consumer of J in the ndchol path casts to f32 anyway
+    (normal-equation assembly, the factorization, the loose-polish Hvp).
+    Only the residual r feeds the f64-critical quantities (cost, gradient
+    RHS), so r is evaluated at f64 and J at f32.
     """
     v32 = {t: jnp.asarray(v, jnp.float32) for t, v in values.items()}
     out = []
@@ -289,10 +287,9 @@ def dense_normal_eqs(ga: GraphArrays, lins, dtype=None, rt=None):
     (testFixedLagFG.jl bit-stability) is realized in the parametric path.
 
     All block contributions are flattened into ONE scatter-add per output
-    (H and g): TPU scatters have high per-call cost (each sequential
-    ``.at[].add`` re-materializes the 441 MB M3500 H), so fusing the 4+
-    per-batch slot-pair scatters into a single call is worth ~2x on the
-    assembly phase of every LM iteration.
+    (H and g): each sequential ``.at[].add`` may re-materialize the whole
+    dense H (441 MB at M3500), so the 4+ per-batch slot-pair scatters go
+    into a single call.
 
     ``dtype``: assembly precision. At M3500 scale cond(H) ~ 1e8, so an H
     *stored* in f32 is perturbed by eps32*cond ~ O(1) in its raw solution —

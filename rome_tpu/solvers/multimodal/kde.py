@@ -6,7 +6,7 @@ SURVEY.md §0 table) as batched JAX kernels:
 
 - a belief is a dense particle array ``(N, point_dim)`` + per-dof bandwidth;
 - kernel evaluations between particle sets are N x N batched ops (vmapped
-  manifold ``local`` + Gaussian kernels, MXU/VPU-friendly);
+  manifold ``local`` + Gaussian kernels);
 - the multi-density product is a parallel Gibbs label sampler over kernel
   selections (the prodAppxMSGibbsS analogue), fully vectorized over output
   particles — no sequential per-sample loop.
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from rome_tpu.manifolds.base import Manifold
+from rome_tpu.ops.pairwise import pairwise_logw
 
 
 # Jitted-kernel cache keyed by the manifold's STRUCTURAL signature (type,
@@ -169,32 +170,6 @@ class ManifoldKernelDensity:
         return self.points[jnp.argmax(lp)]
 
 
-def _fused_pairwise_logw(man, ref, mu_c, pts, var):
-    """Dispatch to the fused Pallas pairwise-score kernels (rome_tpu.ops)
-    when the manifold's ``local`` map has a fused implementation; returns
-    None to fall back to the generic vmapped path."""
-    from rome_tpu.manifolds.base import SE2, SO2, ProductGroup, TranslationGroup
-    from rome_tpu.ops.pairwise import _DPAD, euclid_pairwise_logw, se2_pairwise_logw
-
-    inv_var = 1.0 / var
-    if isinstance(man, SE2):
-        return se2_pairwise_logw(ref, mu_c, pts, inv_var)
-
-    def per_dim(m):
-        if isinstance(m, (TranslationGroup, SO2)):
-            return True
-        if isinstance(m, ProductGroup):
-            return all(per_dim(p) for p in m.parts)
-        return False
-
-    if per_dim(man) and man.point_dim == man.dof and man.dof <= _DPAD:
-        circ = jnp.asarray(
-            [1.0 if c == "c" else 0.0 for c in man.coord_types], jnp.float32
-        )
-        return euclid_pairwise_logw(ref, mu_c, pts, inv_var, circ)
-    return None
-
-
 def gibbs_product(
     key,
     densities,
@@ -250,16 +225,7 @@ def gibbs_product(
             # conditional weight of every kernel i of density j against the
             # product-of-others Gaussian: N(local(ref, p_i); mu_c, 1/prec + bw_j^2)
             var = 1.0 / prec + densities[j].bandwidth**2  # (dof,)
-            # fused Pallas local+Mahalanobis score where available (SE2 /
-            # per-dim manifolds); generic vmapped fallback otherwise
-            logw = _fused_pairwise_logw(man, ref, mu_c, densities[j].points, var)
-            if logw is None:
-                def coords_for(ref_k, pts=densities[j].points):
-                    return man.local(jnp.broadcast_to(ref_k, pts.shape), pts)
-
-                C = jax.vmap(coords_for)(ref)          # (N, Nj, dof)
-                d2 = (C - mu_c[:, None, :]) ** 2 / var  # (N, Nj, dof)
-                logw = -0.5 * jnp.sum(d2, axis=-1)      # (N, Nj)
+            logw = pairwise_logw(man, ref, mu_c, densities[j].points, 1.0 / var)
             labels[j] = jax.random.categorical(keys[ki], logw, axis=-1)
             ki += 1
 

@@ -7,7 +7,7 @@ upsolve/downsolve belief propagation, recycling unchanged cliques on
 re-solve (solveTree!(fg, tree); calcCliquesRecycled counters at
 examples/ManhattanDatasetIncremental.jl:112-115).
 
-TPU design stance (SURVEY.md §7 hard parts): the tree is host-side
+Design stance (SURVEY.md §7 hard parts): the tree is host-side
 scheduling metadata; the per-clique work (approxConv messages, Gibbs belief
 products) stays as the engine's batched device kernels. Cliques on the same
 tree level are independent and dispatch together.

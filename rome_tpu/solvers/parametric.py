@@ -56,7 +56,9 @@ def solve_graph_parametric(
         # workers): run the factor-sharded solve over the full device mesh
         from rome_tpu.parallel.distributed import solve_graph_distributed
 
-        return solve_graph_distributed(fg, solve_key=solve_key)
+        return solve_graph_distributed(
+            fg, solve_key=solve_key, chordal_init=chordal_init
+        )
 
     ga = lower(fg, solve_key, dtype=dtype, pad=pad)
 

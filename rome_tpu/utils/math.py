@@ -1,8 +1,7 @@
 """Small numerical utilities shared across the framework.
 
-TPU-first notes: every function here is shape-polymorphic, jit-safe and
-vmap-safe (no data-dependent Python control flow), and avoids float64 so the
-hot paths stay on the VPU/MXU in f32/bf16.
+Every function here is shape-polymorphic, jit-safe and vmap-safe (no
+data-dependent Python control flow).
 
 Reference parity:
   - ``sym_rem`` mirrors ``Manifolds.sym_rem`` used throughout the reference
@@ -17,11 +16,31 @@ Reference parity:
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
 
 TWO_PI = 2.0 * jnp.pi
+
+
+def full_f32_matmuls(fn):
+    """Trace ``fn`` with every f32 matrix product at full f32 precision.
+
+    At JAX's default precision a GPU may run an f32 product in TF32, which
+    keeps about three decimal digits. The solvers' f32 factors and
+    preconditioners then get weaker, and the LM iteration count moves with
+    the caller's ``jax_default_matmul_precision``. The scope is entered while
+    ``fn`` is traced, so each ``dot_general`` in its jaxpr carries
+    ``Precision.HIGHEST`` whatever the global setting."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def sym_rem(theta):

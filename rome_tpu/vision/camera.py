@@ -5,7 +5,7 @@ residual :33-60, solveMultiviewLandmark! :77-167), ext/factors/
 GenericProjection.jl:24-33, and src/legacy/CameraModel.jl:3-48 (legacy
 pinhole intrinsic/extrinsic + cameraResidual!).
 
-TPU design: the projection residual is a pure jnp kernel the solvers vmap;
+Design: the projection residual is a pure jnp kernel the solvers vmap;
 the multiview triangulation is a vmapped multi-restart Gauss-Newton over
 random initializations — all restarts solved in ONE batched device call
 instead of the reference's serial Optim retry loop.

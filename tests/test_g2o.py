@@ -75,7 +75,7 @@ def test_vertex_initialization(tmp_path):
         "EDGE_SE2 0 1 1.0 0.0 0.2 100 0 0 100 0 100\n"
     )
     fg = load_g2o(None, str(p))
-    # f32 quantization through manifold exp/log is by design (TPU-first)
+    # f32 quantization through manifold exp/log is by design (f32 graphs)
     np.testing.assert_allclose(fg.get_coords("x0"), [1, 2, 0.5], atol=1e-6)
     np.testing.assert_allclose(fg.get_coords("x1"), [2, 3, 0.7], atol=1e-6)
 

@@ -282,3 +282,43 @@ def test_symbolic_handles_disconnected_and_tiny():
         np.asarray(x_nd), np.asarray(jnp.linalg.solve(Hs, b)),
         rtol=0, atol=1e-10,
     )
+
+
+def _dot_generals(jaxpr):
+    """Every dot_general equation in a closed jaxpr, sub-jaxprs included."""
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            yield eqn
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            yield from _dot_generals(sub)
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_ndchol_f32_products_carry_highest_precision(blocked):
+    """The f32 factor preconditions the solver's CG: its products must not be
+    left to the backend's default precision (TF32 on a GPU), whatever the
+    caller's jax_default_matmul_precision says."""
+    fg = _grid_graph(6, 6)
+    ga, rt, sym = _symbolic_and_parts(fg, leaf=2)
+    arrs = sym.device_arrs()
+    Ws = [
+        jnp.broadcast_to(jnp.eye(sm + bm, dtype=jnp.float32), (n_l, sm + bm, sm + bm))
+        for n_l, sm, bm in sym.plan
+    ]
+    b = jnp.ones((sym.D,), jnp.float32)
+
+    def factor_and_solve(Ws, b):
+        Linvs, L21s, _ = ndchol_factorize(sym, arrs, Ws, blocked=blocked)
+        return ndchol_solve(sym, arrs, Linvs, L21s, b), ndchol_takahashi(
+            sym, arrs, Linvs, L21s
+        )
+
+    with jax.default_matmul_precision("default"):
+        jaxpr = jax.make_jaxpr(factor_and_solve)(Ws, b).jaxpr
+    dots = [
+        e for e in _dot_generals(jaxpr)
+        if e.invars[0].aval.dtype == jnp.float32
+    ]
+    assert dots, "expected f32 products in the factorization"
+    hi = jax.lax.Precision.HIGHEST
+    assert all(e.params["precision"] == (hi, hi) for e in dots)

@@ -1,9 +1,8 @@
-"""Fused Pallas pairwise-score kernels vs the generic vmapped path.
+"""Gibbs conditional scoring (ops/pairwise.py) vs the vmapped reference.
 
-The kernels fuse manifold ``local`` + Mahalanobis scoring for the Gibbs
-belief product (reference hot loop: KDE prodAppxMSGibbsS, BayesTracker.jl
-usage). Parity must be tight since the Gibbs label sampler consumes these
-log-weights directly.
+The sampler consumes these log-weights directly (reference hot loop: KDE
+prodAppxMSGibbsS, BayesTracker.jl usage), so the scoring path must match the
+vmapped ``man.local`` form to f32 rounding.
 """
 
 import jax
@@ -12,12 +11,15 @@ import numpy as np
 import pytest
 
 from rome_tpu.manifolds.base import SE2, SO2, ProductGroup, TranslationGroup
-from rome_tpu.ops.pairwise import euclid_pairwise_logw, se2_pairwise_logw
-from rome_tpu.solvers.multimodal.kde import (
-    ManifoldKernelDensity,
-    _fused_pairwise_logw,
-    gibbs_product,
-)
+from rome_tpu.ops.pairwise import pairwise_logw
+from rome_tpu.solvers.multimodal.kde import ManifoldKernelDensity, gibbs_product
+
+MANIFOLDS = {
+    "se2": SE2(),
+    "point2": TranslationGroup(2),
+    "point3": TranslationGroup(3),
+    "circle_x_r": ProductGroup([SO2(), TranslationGroup(1)], name="BearingRange"),
+}
 
 
 def _generic_logw(man, ref, mu, pts, var):
@@ -28,59 +30,64 @@ def _generic_logw(man, ref, mu, pts, var):
     return -0.5 * jnp.sum((C - mu[:, None, :]) ** 2 / var, axis=-1)
 
 
-def test_se2_kernel_matches_generic(rng):
-    man = SE2()
-    N, Nj = 37, 101  # deliberately off tile boundaries
-    ref = np.c_[rng.normal(size=(N, 2)) * 3, rng.uniform(-np.pi, np.pi, N)]
-    pts = np.c_[rng.normal(size=(Nj, 2)) * 3, rng.uniform(-np.pi, np.pi, Nj)]
-    mu = rng.normal(size=(N, 3)).astype(np.float32) * 0.5
-    var = np.array([0.3, 0.7, 0.2], np.float32)
+def _points(man, n, rng):
+    """n points, the circular coordinates within 1e-3 of the +-pi wrap for
+    a third of them."""
+    p = rng.normal(size=(n, man.point_dim)) * 3.0
+    for d, c in enumerate(man.coord_types):
+        if c == "c":
+            p[:, d] = rng.uniform(-np.pi, np.pi, n)
+            near = rng.random(n) < 1 / 3
+            p[near, d] = np.sign(rng.normal(size=near.sum())) * (
+                np.pi - rng.uniform(1e-4, 1e-3, near.sum())
+            )
+    return jnp.asarray(p, jnp.float32)
 
-    got = se2_pairwise_logw(ref, mu, pts, 1.0 / var)
-    want = _generic_logw(man, jnp.asarray(ref, jnp.float32), jnp.asarray(mu),
-                         jnp.asarray(pts, jnp.float32), jnp.asarray(var))
+
+def _case(man, N, Nj, rng):
+    ref, pts = _points(man, N, rng), _points(man, Nj, rng)
+    mu = jnp.asarray(rng.normal(size=(N, man.dof)) * 0.5, jnp.float32)
+    var = jnp.asarray(rng.uniform(0.1, 1.0, man.dof), jnp.float32)
+    return ref, mu, pts, var
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("N", [1, 37, 257])
+@pytest.mark.parametrize("name", sorted(MANIFOLDS))
+def test_scoring_matches_vmapped_local(name, N, rng):
+    man = MANIFOLDS[name]
+    Nj = N + 3  # N != Nj
+    ref, mu, pts, var = _case(man, N, Nj, rng)
+    got = pairwise_logw(man, ref, mu, pts, 1.0 / var)
     assert got.shape == (N, Nj)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+    _close(got, _generic_logw(man, ref, mu, pts, var))
+
+
+def test_se2_kernel_matches_generic(rng):
+    """SE(2) scoring off any tile boundary, angles near the wrap included."""
+    man = SE2()
+    ref, mu, pts, var = _case(man, 37, 101, rng)
+    _close(pairwise_logw(man, ref, mu, pts, 1.0 / var),
+           _generic_logw(man, ref, mu, pts, var))
 
 
 def test_euclid_kernel_matches_generic_with_wrap(rng):
-    # BearingRange-style manifold: Circle x R
-    man = ProductGroup([SO2(), TranslationGroup(1)], name="BearingRange")
-    N, Nj = 50, 64
-    ref = np.c_[rng.uniform(-np.pi, np.pi, N), rng.normal(size=N) * 5]
-    pts = np.c_[rng.uniform(-np.pi, np.pi, Nj), rng.normal(size=Nj) * 5]
-    mu = rng.normal(size=(N, 2)).astype(np.float32) * 0.3
-    var = np.array([0.1, 0.9], np.float32)
-
-    circ = np.array([1.0, 0.0], np.float32)
-    got = euclid_pairwise_logw(ref, mu, pts, 1.0 / var, circ)
-    want = _generic_logw(man, jnp.asarray(ref, jnp.float32), jnp.asarray(mu),
-                         jnp.asarray(pts, jnp.float32), jnp.asarray(var))
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-5)
-
-
-def test_fused_dispatch():
-    assert _fused_pairwise_logw(
-        SE2(),
-        jnp.zeros((4, 3)), jnp.zeros((4, 3)), jnp.zeros((6, 3)), jnp.ones(3),
-    ) is not None
-    assert _fused_pairwise_logw(
-        TranslationGroup(2),
-        jnp.zeros((4, 2)), jnp.zeros((4, 2)), jnp.zeros((6, 2)), jnp.ones(2),
-    ) is not None
-    # SO(3) has no per-dim local -> falls back
-    from rome_tpu.manifolds.base import SO3
-
-    assert _fused_pairwise_logw(
-        SO3(),
-        jnp.zeros((4, 4)), jnp.zeros((4, 3)), jnp.zeros((6, 4)), jnp.ones(3),
-    ) is None
+    """BearingRange-style Circle x R: only the circular dim wraps."""
+    man = MANIFOLDS["circle_x_r"]
+    ref, mu, pts, var = _case(man, 50, 64, rng)
+    _close(pairwise_logw(man, ref, mu, pts, 1.0 / var),
+           _generic_logw(man, ref, mu, pts, var))
 
 
 @pytest.mark.parametrize("man_points", ["se2", "point2"])
 def test_gibbs_product_fused_statistics(man_points, rng):
-    """The fused product must still contract two offset beliefs to the
-    precision-weighted mean (the same statistical check as the pure path)."""
+    """The product must still contract two offset beliefs to the
+    precision-weighted mean."""
     if man_points == "se2":
         man = SE2()
         mk = lambda c: np.c_[rng.normal(c, 0.1, (150, 2)), rng.normal(0, 0.05, 150)]

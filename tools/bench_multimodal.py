@@ -1,8 +1,8 @@
-"""Multimodal (nonparametric) engine perf bench — accuracy-gated (round 5).
+"""Multimodal (nonparametric) engine perf bench — accuracy-gated.
 
 Applies the parametric bench's discipline to the nonparametric path: every
 PUBLISHED row carries an acceptance check and every check counts in
-all_gates_pass (no exclusions — VERDICT r4 weak #3). Mirrors BASELINE.md's
+all_gates_pass (no exclusions). Mirrors BASELINE.md's
 multimodal measurement list (testMultimodalRangeBearing.jl:53-135 multihypo
 config, testPose3Pose3NH.jl:118 nullhypo config, the beehive grow-and-solve
 workload testBeehiveGrow.jl:18-28).
@@ -197,7 +197,7 @@ def bench_honeycomb_grow():
 
 
 def bench_tree_grow():
-    """Bayes-tree engine on the same growing workload (VERDICT r4 #9):
+    """Bayes-tree engine on the same growing workload:
     solve_tree with clique recycling across growths — the reference's
     incremental nonparametric story (solveTree!(fg, tree))."""
     from rome_tpu.canonical.patterns import generate_graph_honeycomb
@@ -345,7 +345,7 @@ def bench_nullhypo():
     )
 
 
-def main(out="MULTIMODAL_r05.json", platform="cpu"):
+def main(out="results/MULTIMODAL.json", platform="cpu"):
     import jax
 
     if platform == "cpu":
@@ -365,7 +365,7 @@ def main(out="MULTIMODAL_r05.json", platform="cpu"):
     rows["pose3_nullhypo"] = bench_nullhypo()
     print(json.dumps(rows["pose3_nullhypo"]), flush=True)
 
-    # every published row gates; no exclusions (VERDICT r4 weak #3)
+    # every published row gates; no exclusions
     gates = {
         k: v["accuracy_ok"] if "accuracy_ok" in v
         else v["points_init"]["accuracy_ok"]
@@ -379,14 +379,15 @@ def main(out="MULTIMODAL_r05.json", platform="cpu"):
         gates=gates,
         all_gates_pass=bool(all(gates.values())),
     )
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), out), "w") as fh:
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), out)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
         json.dump(doc, fh, indent=1)
     print(json.dumps(doc), flush=True)
 
 
 if __name__ == "__main__":
-    out = sys.argv[1] if len(sys.argv) > 1 else "MULTIMODAL_r05.json"
+    out = sys.argv[1] if len(sys.argv) > 1 else "results/MULTIMODAL.json"
     platform = sys.argv[2] if len(sys.argv) > 2 else "cpu"
     main(out, platform)
-    os._exit(0)

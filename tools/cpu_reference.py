@@ -1,13 +1,13 @@
 """Standalone CPU reference solver for 2D pose-graph g2o datasets.
 
-Purpose (VERDICT round-1 item 1): the Julia reference stack is mounted but
-not runnable in this image (no `julia` binary), so the benchmark baseline is
+Purpose: the Julia reference stack is not runnable here (no `julia`
+binary), so the benchmark baseline is
 anchored to THIS measured program instead of a guess: a classical float64
 sparse-Cholesky Levenberg-Marquardt solver (numpy/scipy only — the same
 algorithm class as g2o/GTSAM batch and IIF's parametric path), run on the
 host CPU. It is deliberately independent of the JAX code path so it also
 serves as the ground-truth producer: its converged float64 optimum is stored
-and the TPU solve's ATE is measured against it.
+and the accelerator solve's ATE is measured against it.
 
 Residual conventions match rome_tpu exactly (hybrid SE(2) tangent,
 whitened residuals r_w = sqrt_info @ local(q, p∘exp(z)) — see

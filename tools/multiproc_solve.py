@@ -1,8 +1,8 @@
-"""ACTUAL multi-process jax.distributed solve on localhost (VERDICT r2 #4).
+"""ACTUAL multi-process jax.distributed solve on localhost.
 
 The reference's only distributed execution is `addprocs(4); @everywhere
 using RoME` + solves against the worker pool (testBeehiveGrow.jl:7-28).
-The TPU-native analogue is one JAX process per host joined through
+The JAX analogue is one JAX process per host joined through
 `jax.distributed`. This tool PROVES that path end-to-end on one machine:
 
   parent:   solves the 1,024-pose chain single-process (8 virtual CPU
@@ -15,9 +15,9 @@ The TPU-native analogue is one JAX process per host joined through
             gradient/HVP psums cross the process boundary on every CG
             iteration;
   parent:   asserts final cost match (rel 1e-4) and same convergence,
-            writes MULTIPROC_r{N}.json.
+            writes results/MULTIPROC.json.
 
-Usage: python tools/multiproc_solve.py [--workers 2] [--poses 1024] [--out MULTIPROC_r03.json]
+Usage: python tools/multiproc_solve.py [--workers 2] [--poses 1024] [--out results/MULTIPROC.json]
        python tools/multiproc_solve.py --worker <pid> <nprocs> <ndev_local>   (internal)
 """
 
@@ -139,7 +139,7 @@ def main():
 
     nworkers = 2
     poses = 1024
-    out = "MULTIPROC_r03.json"
+    out = "results/MULTIPROC.json"
     if "--workers" in args:
         nworkers = int(args[args.index("--workers") + 1])
     if "--poses" in args:
@@ -248,7 +248,7 @@ def main():
         single=single,
         multi=multi,
         # the FLAGSHIP path's drift (varpart owner-computes), not just the
-        # factor-sharded path's (VERDICT r4 #5): f64 collectives in
+        # factor-sharded path's: f64 collectives in
         # varpart.cost_of/schur_solve pin the LM trajectory across process
         # topologies
         iter_drift_varpart=vp_drift,
@@ -274,7 +274,9 @@ def main():
             "(testBeehiveGrow.jl:7-12)."
         ),
     )
-    with open(os.path.join(REPO, out), "w") as fh:
+    path = os.path.join(REPO, out)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
         json.dump(doc, fh, indent=1)
     print("wrote", out, "ok =", ok)
     sys.exit(0 if ok else 1)

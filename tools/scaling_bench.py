@@ -1,12 +1,12 @@
-"""SCALING_r05: varpart strong-scaling sweep over problem SIZE with a
-per-phase decomposition (VERDICT r4 #6).
+"""Varpart strong-scaling sweep over problem SIZE with a per-phase
+decomposition.
 
 On this host the 8 "devices" are virtual CPU devices sharing
 ``os.cpu_count()`` physical cores, so raw wall-clock cannot beat the
 core count. Two efficiency columns are reported:
 
-- efficiency_raw       = T1 / (N * TN)            (the r4 definition; its
-  ceiling on c cores is c/N — 0.25 here at N=8 on 2 cores)
+- efficiency_raw       = T1 / (N * TN)            (its ceiling on c cores
+  is c/N)
 - efficiency_core_norm = T1 / (min(N, c) * TN)    (ideal = 1.0: the
   partition is free and the virtual mesh saturates the physical cores)
 
@@ -37,7 +37,7 @@ def _wall(fn, *a, reps=3):
     return best
 
 
-def main(out="SCALING_r05.json"):
+def main(out="results/SCALING.json"):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -137,18 +137,19 @@ def main(out="SCALING_r05.json"):
             "claim demonstrated is efficiency RISING with problem size as "
             "the separator overhead amortizes (BASELINE >=75%-at-2-hosts "
             "maps to efficiency_core_norm on real multi-host meshes where "
-            "each process owns its silicon — see MULTIPROC_r05 for the "
-            "real 2-process run)."
+            "each process owns its silicon — tools/multiproc_solve.py runs "
+            "the real 2-process case)."
         ),
         rows=rows,
         phase_decomposition=phase_rows,
     )
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), out), "w") as fh:
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), out)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
         json.dump(doc, fh, indent=1)
     print("wrote", out, flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "SCALING_r05.json")
-    os._exit(0)
+    main(sys.argv[1] if len(sys.argv) > 1 else "results/SCALING.json")
